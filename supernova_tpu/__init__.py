@@ -1,4 +1,4 @@
-"""supernova_tpu — a TPU-native (JAX/XLA/Pallas) linked-read de novo diploid
+"""supernova_tpu — a JAX/XLA linked-read de novo diploid
 genome assembly framework with the capabilities of 10x Genomics Supernova.
 
 Reference behavior blueprint: /root/repo/SURVEY.md (cites 10XGenomics/supernova).
@@ -7,7 +7,7 @@ merges instead of the reference's Martian/C++/Rust stage pipeline.
 
 Layering (bottom to top):
   core/      packed-base + ragged-array substrate (feudal/Basevector analogue)
-  ops/       sorted-segment reductions, lexicographic sort/search, Pallas kernels
+  ops/       sorted-segment reductions, compaction, alignment DP
   ingest/    FASTQ -> barcode-corrected, barcode-sorted ReadSet (bci CSR index)
   kmer/      48-mer counting (MSP/SHARD_ASM/Kmerizer analogue)
   dbg/       de Bruijn graph build + unipath compaction (buildEdges/HBV analogue)

@@ -6,7 +6,7 @@ bucketed BWT construction + merge (`compute_bwt*`, :229-317).  The
 reference ships it as an experimental exact-match locator over the DBG
 edge set.
 
-TPU-native re-design:
+Device re-design:
   * build (host): generalized suffix array over the concatenated edge
     sequences via prefix-doubling with np.lexsort (no per-suffix loops);
     edge separators use code 4 so DNA patterns (codes 0-3) can never
@@ -129,7 +129,7 @@ class FMIndex:
 
         patterns (Q, L) uint8 right-padded, lengths (Q,).  One lax.scan
         over the L positions; each step is a vectorized rank lookup for
-        all Q live ranges (the TPU-shaped form of bwt.rs:119-138)."""
+        all Q live ranges (the batched form of bwt.rs:119-138)."""
         import jax
         import jax.numpy as jnp
 

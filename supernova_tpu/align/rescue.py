@@ -4,7 +4,7 @@ Reference behavior: HBVPather::algorithmTwo seeds reads on the kmer dict
 but tolerates errors at low-quality bases when seeding/extending
 (BuildReadQGraph48.cc:1185-1438 + ExtendReadPath.cc qual scoring) — a read
 whose every 48-mer window covers a sequencing error still paths.  The main
-TPU pather (align/pather.py) uses exact dictionary seeds, which places
+device pather (align/pather.py) uses exact dictionary seeds, which places
 >99.9% of reads at typical error rates; this module recovers the residue
 the reference would have placed: reads with ZERO exact kmer hits.
 

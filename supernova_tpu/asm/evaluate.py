@@ -147,9 +147,12 @@ def _map_contigs(contigs, refs, idx, min_parallel: int = 64):
             budget = max(600.0, 0.5 * n)
             chunks = pool.map_async(_pool_eval, spans).get(timeout=budget)
         return [e for ch in chunks for e in ch]
-    except mp.TimeoutError:
-        return [evaluate_contig(c, refs, idx) for c in contigs]
-    except Exception:
+    except Exception as e:  # noqa: BLE001 — pool wedge/failure
+        import logging
+
+        logging.getLogger("supernova_tpu").warning(
+            "evaluate: parallel evaluate fell back to serial (%.80s)", repr(e)
+        )
         return [evaluate_contig(c, refs, idx) for c in contigs]
     finally:
         _POOL_STATE.clear()

@@ -239,19 +239,15 @@ def nucleate_graph(
                 extra_pairs.append((b0, int(cstart[c] + p)))
 
     # device glue core (parallel/device_nucleate.py: the sort/join/min-label
-    # formulation of the same partition) — used on TPU for big closure sets;
-    # falls back to the host cores on budget overflow
+    # formulation of the same partition) — used on an accelerator for big
+    # closure sets; falls back to the host cores on budget overflow
     plain_mode = (
         not interior_matches and interior_pairs is None and not extra_unions
     )
     if device_glue is None:
-        import jax
+        from ..core.jaxconfig import on_accelerator
 
-        device_glue = (
-            plain_mode
-            and jax.default_backend() == "tpu"
-            and sum(lens) > 200_000
-        )
+        device_glue = plain_mode and on_accelerator() and sum(lens) > 200_000
     if mesh is not None and plain_mode and getattr(mesh.devices, "size", 1) > 1:
         # mesh-sharded glue (parallel/sharded_nucleate.py): identical
         # partition, distributed over the device mesh

@@ -14,7 +14,7 @@ with good/bad ratio < 4 are dropped (Flipper.cc:562), columns fixed once
 more, and phase blocks are bounded at weak pivots where the pivot
 advantage exceeds MAX_PIVOT_OK = -20 (Flipper.cc:612-652).  The bubble x
 molecule support matrix is the BandedMatrix analogue (Flipper.cc:36-75) —
-dense vectorized ops, TPU-friendly at scale; numpy here at line sizes.
+dense vectorized ops, accelerator-friendly at scale; numpy here at line sizes.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ gather the supporting reads, align them into a common coordinate frame (a
 gap (10X/Stackster.cc, paths/long/ReadStack.cc, CloseGap2 in
 10X/Closomatic.cc).
 
-TPU-native shape: a stack is a dense (reads x columns) matrix of base codes
+Device shape: a stack is a dense (reads x columns) matrix of base codes
 plus a parallel capped-qual matrix; the consensus is a one-hot
 qual-weighted vote per column — pure batched matrix ops (vectorized numpy
 here; the same expression lifts to a (gaps x reads x columns) jnp batch on

@@ -288,18 +288,24 @@ def cmd_readqa(args) -> int:
     return 0
 
 
-def cmd_simulate(args) -> int:
-    from .ingest.tenx import write_sim_fastqs
+def simulate_dataset(
+    genome_size: int, repeats: int = 2, barcodes: int = 100,
+    whitelist_size: int = 512, seed: int = 0, het_rate: float = 0.001,
+    error_rate: float = 0.002, molecules_per_barcode: int = 10,
+    molecule_len: int = 60_000, mol_coverage: float = 0.2,
+    dense_sim: bool = False,
+):
+    """The `simulate` command's dataset, in memory:
+    -> (hap_a, hap_b, whitelist codes, SimReads)."""
     from .sim import genome as sim
 
-    rng = np.random.default_rng(args.seed)
-    g = sim.random_genome(rng, args.genome_size, n_repeat_chunks=args.repeats)
-    _, hb = sim.diploidize(rng, g, het_rate=args.het_rate)
+    rng = np.random.default_rng(seed)
+    g = sim.random_genome(rng, genome_size, n_repeat_chunks=repeats)
+    _, hb = sim.diploidize(rng, g, het_rate=het_rate)
     # the whitelist must be at least as large as the barcode draw
     # (sim samples barcodes without replacement, mirroring the reference's
     # 4M-barcode whitelist being far larger than any run's GEM count)
-    wl_size = max(args.whitelist_size, 2 * args.barcodes)
-    wl = sim.make_whitelist(rng, wl_size)
+    wl = sim.make_whitelist(rng, max(whitelist_size, 2 * barcodes))
     # Chromium-realistic GEM statistics (alarms-supernova.json:100-112):
     # ~10 molecules/barcode, exponential molecule lengths mean ~60 kb,
     # 0.2x per-molecule read sampling.  Per-barcode yield 10*60k*0.2 =
@@ -309,13 +315,25 @@ def cmd_simulate(args) -> int:
         rng,
         (g, hb),
         wl,
-        n_barcodes=args.barcodes,
-        molecules_per_barcode=args.molecules_per_barcode,
-        molecule_len=min(args.molecule_len, max(args.genome_size // 2, 2_000)),
-        coverage_per_molecule=args.mol_coverage,
-        error_rate=args.error_rate,
+        n_barcodes=barcodes,
+        molecules_per_barcode=molecules_per_barcode,
+        molecule_len=min(molecule_len, max(genome_size // 2, 2_000)),
+        coverage_per_molecule=mol_coverage,
+        error_rate=error_rate,
         bc_error_rate=0.01,
-        chromium_model=not args.dense_sim,
+        chromium_model=not dense_sim,
+    )
+    return g, hb, wl, reads
+
+
+def cmd_simulate(args) -> int:
+    from .ingest.tenx import write_sim_fastqs
+
+    g, hb, wl, reads = simulate_dataset(
+        args.genome_size, args.repeats, args.barcodes, args.whitelist_size,
+        args.seed, args.het_rate, args.error_rate,
+        args.molecules_per_barcode, args.molecule_len, args.mol_coverage,
+        args.dense_sim,
     )
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -685,7 +703,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="supernova_tpu")
     ap.add_argument(
         "--platform", default=None,
-        help="force the JAX backend (e.g. cpu, tpu); also via "
+        help="force the JAX backend (e.g. cpu, gpu); also via "
              "SUPERNOVA_TPU_PLATFORM env",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)

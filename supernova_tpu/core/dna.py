@@ -1,6 +1,6 @@
 """Base-code substrate: DNA as small integer codes (A=0,C=1,G=2,T=3).
 
-TPU-native analogue of the reference's 2-bit Basevector
+Device-side analogue of the reference's 2-bit Basevector
 (lib/assembly/src/Basevector.h, dna/Bases.h).  In host memory we keep flat
 uint8 code arrays + CSR offsets; device kernels pack 16 codes per uint32 word
 (see core/kmer_codec.py).  Complement is code ^ 3 (A<->T, C<->G), which keeps

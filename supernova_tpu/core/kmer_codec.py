@@ -1,15 +1,14 @@
 """48-mer codec: pack / reverse-complement / canonicalize / lex-sort / search.
 
-TPU-native analogue of the reference's Kmer/Lmer primitives
+Device-side analogue of the reference's Kmer/Lmer primitives
 (lib/tada/src/kmer/mod.rs:27-52 — K=48, 2-bit packed) and KMer<K>
 (lib/assembly/src/kmers/KMer.h).  A 48-mer is 96 bits, stored as 3 uint32
 words of 16 bases each, base-big-endian within each word so that
 lexicographic (a,b,c) order == lexicographic base order with A<C<G<T.
 
 LAYOUT IS STRUCTURE-OF-ARRAYS: a batch of N kmers is W3(a,b,c) — three
-separate (N,) uint32 arrays, NOT an (N,3) array.  TPU tiling pads the minor
-dimension to 128 lanes, so an (N,3) uint32 array occupies ~42x its logical
-bytes in HBM; three flat vectors tile perfectly.
+separate (N,) uint32 arrays, NOT an (N,3) array: each word column is a
+contiguous vector that sorts, compares and moves on its own.
 
 Everything here is jnp, static-shape, jit-friendly.  Invalid slots use the
 all-ones sentinel, which can never be a *canonical* kmer (its rc would be
@@ -85,8 +84,7 @@ def sliding_words(codes, n: int) -> W3:
     zeros on the host; validity of positions is the caller's concern).
 
     Built from 48 static shifted slices (shift-or), which XLA fuses into a
-    single elementwise loop — the Pallas kernel in ops/pallas replaces this
-    on the hot path.
+    single elementwise loop.
     """
     c = jnp.asarray(codes).astype(U32)
     words = []
@@ -171,8 +169,8 @@ def last_base(w: W3):
 
 
 def unpack_bases(w: W3):
-    """W3 -> (N, 48) int32 base codes (minor dim padded on TPU — use only
-    where a dense base matrix is genuinely needed)."""
+    """W3 -> (N, 48) int32 base codes (16x the bytes of the packed words —
+    use only where a dense base matrix is genuinely needed)."""
     shifts = (np.uint32(2) * (15 - np.arange(16, dtype=np.uint32))).astype(np.uint32)
     cols = [
         ((word[:, None] >> shifts[None, :]) & np.uint32(3)).astype(jnp.int32)
@@ -187,14 +185,7 @@ def sort_by_words(w: W3, extra_keys=(), payloads=(), stable: bool = True):
     Returns (W3 sorted, extra_keys_sorted tuple, payloads_sorted tuple).
     Pass stable=False when rows with fully-equal keys are interchangeable
     (e.g. occurrence rows with all attributes packed into the keys) — the
-    unstable sort is measurably faster on TPU.
-
-    NOTE: the Pallas bitonic sort (ops/pallas/sort.py) was chip-evaluated as
-    a replacement for the unstable all-key case and LOST — see
-    ARCHITECTURE.md "Pallas sort postmortem" (the compile service OOMs on
-    any tile large enough to amortize HBM round trips; the largest
-    compileable tile ran 0.42x of lax.sort at 2^25 rows).  lax.sort is the
-    fastest available exact sort on this runtime.
+    sort is then free to skip stability.
     """
     ops = [w.a, w.b, w.c, *extra_keys, *payloads]
     num_keys = 3 + len(extra_keys)
@@ -230,9 +221,10 @@ def searchsorted_words(table: W3, query: W3, table_size: int | None = None):
 
 
 def lookup_words_merge(table: W3, query: W3):
-    """Bulk dictionary lookup as a sort-merge join (the TPU-native hash-map
-    replacement at large N — vectorized binary search costs ~25s at 48M
-    queries on v5e, this costs ~1 sort).
+    """Bulk dictionary lookup as a sort-merge join (the device hash-map
+    replacement at large N: one sort instead of a vectorized binary search;
+    chosen on an earlier device, not yet re-measured on the H100 —
+    ROADMAP speed item 2).
 
     table must be lexicographically sorted (sentinel-padded).  Returns
     (row (N,) int32 = matching table row (undefined when not found),

@@ -2,7 +2,7 @@
 
 The single ragged convention for the whole framework (SURVEY.md §7 "Ragged
 everything"): values + offsets, where offsets has length n_rows+1 and row i is
-values[offsets[i]:offsets[i+1]].  This is the TPU-native analogue of the
+values[offsets[i]:offsets[i+1]].  This is the static-shape analogue of the
 reference's feudal MasterVec vec-of-vecs (lib/assembly/src/feudal/) and of the
 bci barcode index (10X/ParseBarcodedFastqs.cc:174-234: bci[b] = first read of
 barcode b).

@@ -15,7 +15,7 @@ ops over all reads at once instead of a per-read hash-map walk:
 
 A 16bp barcode packs exactly into one uint32 (2 bits/base), so the whitelist
 is a sorted uint32 array and membership is a vectorized searchsorted — the
-TPU-friendly replacement for the reference's HashMap.
+Vectorized replacement for the reference's HashMap.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """ReadSet: the ingested, barcode-sorted read store.
 
-TPU-native analogue of the reference's fastb/qualp/bci file triple
+Device-friendly analogue of the reference's fastb/qualp/bci file triple
 (10X/ParseBarcodedFastqs.cc:174-234): flat base codes + CSR offsets replace
 feudal vecbvec, flat quals replace VecPQVec, and `bci` is the same CSR
 barcode index: bci[b] = first read of barcode b, with barcode 0 = the

@@ -1,12 +1,15 @@
 """Native (C++) host-side components, loaded via ctypes.
 
-Built lazily with g++ into a cache dir; every native entry point has a pure
-Python fallback so the framework degrades gracefully without a toolchain.
+Built lazily with g++ from the two .cpp files beside this module into
+<checkout>/build/native (listed in .gitignore; SUPERNOVA_TPU_BUILD moves
+it).  Every native entry point has a pure Python fallback; a failed build
+is logged as a warning and reported by `build_errors()`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import subprocess
 from pathlib import Path
@@ -16,12 +19,32 @@ import numpy as np
 _SRC = Path(__file__).parent / "fastq_decode.cpp"
 _LIB = None
 _TRIED = False
+_ERRORS: dict = {}
 
 
 def _build_dir() -> Path:
-    d = Path(os.environ.get("SUPERNOVA_TPU_BUILD", "/tmp/supernova_tpu_native"))
+    default = Path(__file__).resolve().parents[2] / "build" / "native"
+    d = Path(os.environ.get("SUPERNOVA_TPU_BUILD", default))
     d.mkdir(parents=True, exist_ok=True)
     return d
+
+
+def _build_failed(name: str, e: Exception) -> None:
+    msg = repr(e)
+    if isinstance(e, subprocess.CalledProcessError) and e.stderr:
+        msg = e.stderr.decode(errors="replace")[-400:]
+    _ERRORS[name] = msg
+    logging.getLogger("supernova_tpu").warning(
+        "native %s unavailable, using the Python fallback: %s", name, msg
+    )
+
+
+def build_errors() -> dict:
+    """Build both native libraries now; -> {library: error} for those that
+    failed (empty when both built)."""
+    load_native()
+    load_nucleate()
+    return dict(_ERRORS)
 
 
 def load_native():
@@ -56,7 +79,8 @@ def load_native():
             np.ctypeslib.ndpointer(np.int64), ctypes.c_int64,
         ]
         _LIB = lib
-    except Exception:
+    except Exception as e:  # noqa: BLE001 — no toolchain: Python fallback
+        _build_failed("fastq_decode", e)
         _LIB = None
     return _LIB
 
@@ -131,6 +155,7 @@ def load_nucleate():
             i64,                               # parent (out)
         ]
         _NUC_LIB = lib
-    except Exception:
+    except Exception as e:  # noqa: BLE001 — no toolchain: host Python core
+        _build_failed("nucleate_core", e)
         _NUC_LIB = None
     return _NUC_LIB

@@ -1,6 +1,6 @@
 // Native FASTQ record decoder: ASCII buffer -> base codes + phred quals.
 //
-// TPU-native analogue of the reference's native ingestion front end
+// Host-side analogue of the reference's native ingestion front end
 // (10X/ParseBarcodedFastqs.cc + lib/tada FASTQ readers): the byte-level
 // parse/translate loop is the host-side hot path of ingestion, so it is C++
 // (the Python layer handles gzip streaming and orchestration).

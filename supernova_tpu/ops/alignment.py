@@ -2,7 +2,7 @@
 
 Reference: pairwise_aligners/SmithWatAffine.cc (used for bubble arm-vs-arm
 comparison in the het-rate estimate, CP.cc:1486-1557, and read-stack
-consensus scoring).  TPU-native design: the DP recurrence runs as a
+consensus scoring).  Device design: the DP recurrence runs as a
 lax.scan over rows of the (LA+1, LB+1) matrix with the whole row as vector
 state, vmapped over the batch — score-only (the pipeline consumes distances
 and SNP counts, not tracebacks).

@@ -1,6 +1,6 @@
 """Sorted-segment reductions and stable compaction.
 
-TPU-native replacement for the reference's MapReduceEngine reduce phase
+Device replacement for the reference's MapReduceEngine reduce phase
 (lib/assembly/src/MapReduceEngine.h) — after a device sort, groups are
 contiguous runs, and reductions become segment ops with sorted indices.
 
@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
 def run_starts(*key_arrays):
@@ -68,94 +67,23 @@ def run_end_mask(starts):
     return jnp.concatenate([starts[1:], jnp.ones((1,), bool)])
 
 
-
-
-
-
 def stable_compact(valid, *arrays):
     """Stable partition: rows with valid=True first, preserving order.
 
-    Returns (n_valid scalar int32, compacted arrays).  One stable 1-key sort
-    carrying all columns (sorts are the fastest bulk-movement primitive on
-    TPU); invalid-tail rows are zeroed.
+    Returns (n_valid scalar int32, compacted arrays); rows past n_valid are
+    zeroed.  Stream compaction: an exclusive prefix sum of `valid` gives
+    each kept row its output slot, and one scatter per column with unique
+    indices writes it there (dropped rows aim past the end).  Arrays may be
+    (N,) or (N, W).
     """
     valid = jnp.asarray(valid)
     n = valid.shape[0]
-    key = (~valid).astype(jnp.uint32)
-    cols = []
-    widths = []
-    for a in arrays:
-        a = jnp.asarray(a)
-        if a.ndim == 1:
-            cols.append(a)
-            widths.append(0)
-        else:
-            widths.append(a.shape[1])
-            for j in range(a.shape[1]):
-                cols.append(a[:, j])
-    out = jax.lax.sort((key, *cols), num_keys=1, is_stable=True)
-    n_valid = jnp.sum(valid.astype(jnp.int32))
-    live = jnp.arange(n) < n_valid
-    res = []
-    pos = 1
-    for w, a in zip(widths, arrays):
-        a = jnp.asarray(a)
-        if w == 0:
-            res.append(jnp.where(live, out[pos], jnp.zeros((), a.dtype)))
-            pos += 1
-        else:
-            stacked = jnp.stack(out[pos : pos + w], axis=-1)
-            res.append(jnp.where(live[:, None], stacked, jnp.zeros((), a.dtype)))
-            pos += w
-    return n_valid, tuple(res)
-
-
-# Streaming Pallas compactor instead of the 4-key compaction sort
-# (ops/pallas/compact.py).  Chip-validated 2026-08-18: bit-correct and
-# 2.26x the sort path at 48M rows x (3 words + 2 payloads)
-# (298 ms vs 673 ms on v5e).  Disable via --addin ops.segments.PALLAS_COMPACT=0.
-PALLAS_COMPACT = True
-
-
-def compact_sorted_words(valid, wa, wb, wc, *payloads):
-    """stable_compact specialized for rows ALREADY sorted by (wa, wb, wc).
-
-    Uses an unstable 4-key sort keyed on (~valid, wa, wb, wc): kept rows
-    land in front ordered by their words — identical to the stable result —
-    while the payload column count drops from 3+P to P (20-25% less sort
-    traffic; see the TPU primitive-cost notes in ARCHITECTURE.md).  Rows
-    beyond n_valid are zeroed (words get the caller's fill via .where).
-    Only correct when kept rows have DISTINCT (wa, wb, wc) — true for
-    run-end rows of a kmer-sorted occurrence array.
-
-    With PALLAS_COMPACT on (TPU), a single-pass streaming kernel replaces
-    the sort: in-VMEM log-shift compaction per block + dynamic-offset DMA
-    append (ops/pallas/compact.py) — bandwidth-bound, and stable without
-    the distinct-words requirement.
-    """
-    valid = jnp.asarray(valid)
-    n = valid.shape[0]
-    if PALLAS_COMPACT and jax.default_backend() == "tpu":
-        from .pallas.compact import compact_stream_pallas
-
-        n_valid, res = compact_stream_pallas(valid, wa, wb, wc, *payloads)
-        live = jnp.arange(n) < n_valid
-        res = tuple(
-            jnp.where(live, c, jnp.zeros((), c.dtype)) for c in res
-        )
-        return n_valid, res
-    key = (~valid).astype(jnp.uint32)
-    out = jax.lax.sort(
-        (key, jnp.asarray(wa), jnp.asarray(wb), jnp.asarray(wc))
-        + tuple(jnp.asarray(p) for p in payloads),
-        num_keys=4,
-        is_stable=False,
-    )
-    n_valid = jnp.sum(valid.astype(jnp.int32))
-    live = jnp.arange(n) < n_valid
+    v = valid.astype(jnp.int32)
+    slot = jnp.where(valid, jnp.cumsum(v) - v, n)
+    n_valid = jnp.sum(v)
     res = tuple(
-        jnp.where(live, c, jnp.zeros((), c.dtype)) for c in out[1:]
+        jnp.zeros_like(a).at[slot].set(a, mode="drop", unique_indices=True)
+        for a in map(jnp.asarray, arrays)
     )
     return n_valid, res
-
 

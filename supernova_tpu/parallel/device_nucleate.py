@@ -13,7 +13,7 @@ Scope: the non-interior ("closure") mode used for the big DF-closure glue.
 The interior merge mode (MergeShortOverlaps) stays host-side — it runs at
 supergraph scale (1e3-1e5 edges).
 
-Pipeline (static shapes, int32/uint32 only — no 64-bit on TPU):
+Pipeline (static shapes, int32/uint32 only — x64 stays off):
   1. per-edge distinct-closure multiplicity (sorted dedup + segment count);
   2. per-closure seed: least-multiplicity position within the tail window
      holding >= MIN_OVER kmers, ties -> closest to the end (two scatters);

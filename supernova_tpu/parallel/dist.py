@@ -1,7 +1,7 @@
 """Multi-process (multi-host) wiring.
 
 The reference runs cluster-wide through mrp/SGE (tenkit/bin/common/_mrp:26:
-one martian runtime per cluster job).  The TPU-native equivalent is JAX
+one martian runtime per cluster job).  The JAX equivalent is
 multi-controller: one Python process per host, all processes joined through
 `jax.distributed.initialize`, every jit/shard_map program spanning the
 global ("host", "chip") mesh with DCN collectives over the host axis
@@ -16,9 +16,9 @@ overrides so CPU dryruns can fake a fleet):
     SUPERNOVA_LOCAL_DEVICES optional device count per process (CPU dryruns:
                             also sets xla_force_host_platform_device_count)
 
-On real TPU pods none of these are needed: `jax.distributed.initialize()`
-auto-detects from the TPU metadata and `initialize_from_env` falls through
-to it when JAX reports a pod runtime.
+Nothing on a GPU host tells JAX of a cluster, so every multi-process run
+states all three: SUPERNOVA_COORDINATOR, SUPERNOVA_NUM_PROCESSES and
+SUPERNOVA_PROCESS_ID (a single host's coordinator is `localhost:<port>`).
 
 `init_from_env` must run BEFORE first jax use in the process.
 """

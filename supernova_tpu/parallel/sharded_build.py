@@ -1,6 +1,6 @@
 """Multi-chip unipath graph build over the hash-sharded kmer table.
 
-TPU-native re-expression of SURVEY.md §5.7: the kmer table stays sharded by
+Mesh re-expression of SURVEY.md §5.7: the kmer table stays sharded by
 kmer hash (as produced by sharded_count); the unipath link structure and the
 list ranking run distributed:
 
@@ -15,10 +15,10 @@ list ranking run distributed:
      design (cmd_shard_asm.rs) expressed as mesh collectives.
 
 Every exchange runs in one of two modes (picked by backend, like
-parallel/sharded_count.py): ragged_all_to_all on TPU (only real rows move;
-only the TOTAL per receiver must fit the buffer) or the dense
-fixed-capacity all_to_all fallback on XLA:CPU, which lacks the
-ragged-all-to-all thunk.
+parallel/sharded_count.py): ragged_all_to_all on the GPU (only real rows
+move; only the TOTAL per receiver must fit the buffer) or the dense
+fixed-capacity all_to_all on XLA:CPU, which lacks the ragged-all-to-all
+thunk.
 
 After the distributed phase, compact_links() drops the per-shard padding,
 re-sorts rows lexicographically, and remaps node ids — yielding the SAME
@@ -35,6 +35,7 @@ import numpy as np
 from jax.sharding import PartitionSpec as P
 
 from ..core import kmer_codec as kc
+from ..core.jaxconfig import on_accelerator
 from ..core.kmer_codec import W3
 from ..dbg.build import Links, popcount4, single_bit_index
 from ..kmer.count import KmerTable, rev4
@@ -51,7 +52,7 @@ def _exchange(cols, owner, n_dev: int, cap_per: int, fills, use_ragged: bool = F
 
     Dense mode pads every destination block to cap_per and always moves
     n_dev*cap_per rows (XLA:CPU fallback — no ragged-all-to-all thunk).
-    Ragged mode (TPU) moves only the real rows with ragged_all_to_all into
+    Ragged mode (GPU) moves only the real rows with ragged_all_to_all into
     the same n_dev*cap_per receive buffer: no padding traffic, and only the
     TOTAL (not per-destination) has to fit — strictly fewer drops."""
     n = owner.shape[0]
@@ -218,7 +219,7 @@ def _links_local(
 
     # hash routing is uniform for neighbor queries (2x slack); pointer
     # gathers can concentrate on chain-head owners, so they use the
-    # drop-free full capacity (the TPU path replaces both with
+    # drop-free full capacity (the ragged path replaces both with
     # ragged_all_to_all)
     cap_per_q = -(-n2 // n_dev) * 2
     cap_per = n2
@@ -272,7 +273,7 @@ def sharded_links(mesh, tables_stacked: KmerTable, n_dev: int, cap: int,
                   steps: int, use_ragged: bool | None = None):
     """Distributed Links over the sharded table (global node ids)."""
     if use_ragged is None:
-        use_ragged = jax.default_backend() == "tpu"
+        use_ragged = on_accelerator()
     fn = partial(_links_local, n_dev=n_dev, cap=cap, steps=steps,
                  use_ragged=use_ragged)
     return jax.shard_map(

@@ -1,6 +1,6 @@
 """Multi-chip 48-mer counting: data-parallel reads, hash-sharded kmer space.
 
-This is the TPU-native re-expression of the reference's MSP shuffle
+This is the mesh re-expression of the reference's MSP shuffle
 (SURVEY.md §2.3 #2): reads are split across devices; each device extracts
 canonical kmer occurrence rows; rows are exchanged with ragged_all_to_all
 keyed on a kmer hash (every copy of a kmer lands on one shard, so
@@ -9,8 +9,7 @@ the reference's 8192 disk shards exact, cmd_msp.rs:4-9); each shard then
 sorts + segment-reduces its slice of kmer space locally.
 
 All exchanged buffers are flat 1-D uint32 vectors (kmer words as W3 columns
-+ one packed attribute word) — never (N, k) matrices, which TPU tiling pads
-to 128 lanes.
++ one packed attribute word) — never (N, k) matrices.
 
 The result is a distributed KmerTable sharded by kmer hash.  merge_shard_
 tables() re-sorts the (disjoint) shard tables into the single lexicographic
@@ -26,6 +25,7 @@ import numpy as np
 from jax.sharding import PartitionSpec as P
 
 from ..core import kmer_codec as kc
+from ..core.jaxconfig import on_accelerator
 from ..core.kmer_codec import W3
 from ..kmer.count import (
     BC_IGNORED,
@@ -101,7 +101,7 @@ def _sharded_count_local(
     input_offsets = jnp.cumsum(counts) - counts
 
     if use_ragged:
-        # TPU path: ragged all-to-all per column (flat vectors, no padding)
+        # ragged all-to-all per column (flat vectors, no padding)
         S = jax.lax.all_gather(counts, AXIS)  # (n_dev, n_dev)
         me = jax.lax.axis_index(AXIS)
         recv_sizes = S[:, me]
@@ -182,12 +182,12 @@ def sharded_count(
     """Jitted multi-device counting step: returns per-shard KmerTables
     (leading axis = shard, leaves concatenated) + per-shard overflow.
 
-    use_ragged: ragged_all_to_all (TPU) vs fixed-capacity dense all_to_all
-    (XLA:CPU lacks ragged-all-to-all); default picks by backend.
+    use_ragged: ragged_all_to_all (GPU) vs fixed-capacity dense all_to_all
+    (XLA:CPU lacks ragged-all-to-all); default: on an accelerator.
     uniform_rl: common read length (from split_readset) enabling the static
     tail cut before the pre-exchange sort."""
     if use_ragged is None:
-        use_ragged = jax.default_backend() == "tpu"
+        use_ragged = on_accelerator()
     capacity = -(-capacity // n_dev) * n_dev  # multiple of n_dev
     fn = partial(
         _sharded_count_local,
@@ -204,7 +204,6 @@ def sharded_count(
     return jax.shard_map(
         fn,
         mesh=mesh,
-        check_vma=False,  # pallas calls inside the body don't carry vma info
         in_specs=(P(AXIS), P(AXIS), P(AXIS), P(AXIS)),
         out_specs=(table_spec, P(AXIS)),
     )(codes_ext, pos_read, glen_pos, bc_pos)
@@ -378,7 +377,7 @@ def sharded_count_hier(
     from .mesh import CHIP_AXIS, HOST_AXIS
 
     if use_ragged is None:
-        use_ragged = jax.default_backend() == "tpu"
+        use_ragged = on_accelerator()
     lcm = n_hosts * chips_per_host
     capacity = -(-capacity // lcm) * lcm
     fn = partial(

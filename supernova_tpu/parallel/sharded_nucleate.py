@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..core.jaxconfig import on_accelerator
 from ..ops import segments as seg
 from .device_nucleate import BIG, UBIG, _bcast_back, _seg_count_at_rows, ragged_expand
 from .mesh import AXIS
@@ -445,7 +446,7 @@ def sharded_glue(mesh, cvals_blocks, ccid_blocks, cpos_blocks,
     values / kmer prefix (replicated, or range-sharded with
     value_shard=True) -> (labels (B,) numpy, overflow total)."""
     if use_ragged is None:
-        use_ragged = jax.default_backend() == "tpu"
+        use_ragged = on_accelerator()
     n_dev = mesh.devices.size
     rows = cvals_blocks.shape[1]
     per_label = -(-n_bound // n_dev)

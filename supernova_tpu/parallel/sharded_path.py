@@ -3,9 +3,9 @@
 The pathing workload (align/pather.py) is embarrassingly parallel over
 reads; the kmer->(edge,pos) dictionary is replicated (it is ~100x smaller
 than the occurrence stream).  Under shard_map each device paths its read
-block; outputs stay sharded by read block.  At pod scale the dictionary
-shards by kmer hash with the lookup routed through the same
-ragged_all_to_all as counting (round-2 work); single-host meshes replicate.
+block; outputs stay sharded by read block.  For dictionaries too large to
+replicate, sharded_path_vs shards it by kmer hash and routes each lookup
+to its owner shard with an all_to_all.
 """
 from __future__ import annotations
 
@@ -39,7 +39,6 @@ def sharded_path(
     return jax.shard_map(
         fn,
         mesh=mesh,
-        check_vma=False,  # pallas calls inside the body don't carry vma info
         in_specs=(
             W3(P(), P(), P()),  # dictionary replicated
             P(),
@@ -170,9 +169,9 @@ def _dist_resolve(words_sh, ne_sh, np_sh, n_dev: int, cap: int, canon, flipped):
 
     Lost queries (per-owner capacity overflow) resolve as not-found —
     harmless for pathing (a missed kmer behaves like an error kmer) but
-    capacity should be sized ~2x the balanced load.  TPU round-trip via
-    ragged_all_to_all is a follow-up; the dense exchange is correct on
-    both backends."""
+    capacity should be sized ~2x the balanced load.  A ragged_all_to_all
+    round trip is a follow-up; the dense exchange is correct on both
+    backends."""
     import jax.numpy as jnp
 
     from ..core import kmer_codec as kc

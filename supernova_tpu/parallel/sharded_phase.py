@@ -2,7 +2,7 @@
 
 SURVEY §5.8: phasing consumes a bubble x molecule support matrix
 s[b, m] = reads(arm0) - reads(arm1) (Flipper.cc:36-75 BandedMatrix).  The
-reads live data-parallel across the mesh after pathing, so the TPU-native
+reads live data-parallel across the mesh after pathing, so the mesh-native
 formulation keeps them there: each device scatter-adds its shard's votes
 (read placed on an arm edge -> +/-1 per read into its (bubble, barcode)
 cell) into a local dense matrix, and one psum over the mesh yields the

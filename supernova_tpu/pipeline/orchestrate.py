@@ -4,7 +4,7 @@ retries, and pipestance state.
 The reference's runtime is Martian `mrp` (SURVEY.md §1 L6-L7): every stage
 declares split/main/join, runs as retryable chunk processes, and the
 pipestance directory records per-stage state so a failed run re-enters
-where it stopped.  TPU-native re-expression (SURVEY.md §5.8): one Python
+where it stopped.  JAX re-expression (SURVEY.md §5.8): one Python
 process per host over the device mesh; device-sharded stages run SPMD on
 all hosts, host-side stages run everywhere deterministically (or are
 host-0-gated by the caller); the orchestrator contributes the Martian

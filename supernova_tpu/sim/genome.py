@@ -1,6 +1,6 @@
 """Fixed-seed synthetic diploid genomes + barcoded linked reads.
 
-TPU-framework analogue of the reference's simulation test harness
+JAX-framework analogue of the reference's simulation test harness
 (lib/tada/src/sim_tests.rs:73-140): random genomes with deliberately repeated
 substructure, diploidized with SNPs, shredded into barcoded read pairs whose
 barcode groups come from long molecules — the linked-read data model

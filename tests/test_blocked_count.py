@@ -78,7 +78,8 @@ def test_blocked_pathing_equals_single(rng):
 def test_partitioned_merge_equals_single(rng, monkeypatch):
     """When the concatenated per-block raw rows exceed MERGE_ROWS, the merge
     runs in kmer-range partitions — bit-identical to the one-shot merge
-    (the 10 Mb full-coverage merge OOM'd a 16 GB v5e; this is the fix)."""
+    (the 10 Mb full-coverage merge ran out of a 16 GB device's memory;
+    this is the fix)."""
     rs = _readset(rng)
     single = kcount.count_readset(rs)
     monkeypatch.setattr(kcount, "MERGE_ROWS", 20_000)  # force many partitions
@@ -98,7 +99,7 @@ def test_partitioned_merge_skew(rng, monkeypatch):
 
 def test_oom_halving_retry(rng, monkeypatch):
     """count_readset halves the block size and retries when the blocked
-    count raises a device ResourceExhausted (the 10 Mb v5e OOM path)."""
+    count raises a device ResourceExhausted (the 10 Mb OOM path)."""
     rs = _readset(rng)
     want = kcount.count_readset(rs)
 
@@ -108,7 +109,7 @@ def test_oom_halving_retry(rng, monkeypatch):
     def fake_blocked(rs_, max_positions=kcount.BLOCK_POSITIONS, **kw):
         sizes.append(max_positions)
         if len(sizes) < 3:  # first two attempts "OOM"
-            raise ValueError("RESOURCE_EXHAUSTED: TPU backend error")
+            raise ValueError("RESOURCE_EXHAUSTED: device backend error")
         return real_blocked(rs_, max_positions=max_positions, **kw)
 
     monkeypatch.setattr(kcount, "count_readset_blocked", fake_blocked)

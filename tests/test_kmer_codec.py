@@ -37,6 +37,19 @@ def test_sliding_words_matches_np(rng):
         assert np.array_equal(ws[p], expect), p
 
 
+@pytest.mark.parametrize("n", [512, 128 * 300])
+def test_sliding_words_block_widths(rng, n):
+    """sliding_words at one and at several 32k-row block widths, against a
+    numpy shift-or brute force over every start position."""
+    codes = rng.integers(0, 4, n + 128, dtype=np.int32)
+    ws = kc.sliding_words(codes, n)
+    win = np.lib.stride_tricks.sliding_window_view(codes[: n + kc.K - 1], kc.K)
+    for j, got in enumerate((ws.a, ws.b, ws.c)):
+        part = win[:, 16 * j : 16 * (j + 1)].astype(np.uint64)
+        want = (part << (2 * np.arange(15, -1, -1, dtype=np.uint64))).sum(1)
+        assert np.array_equal(np.asarray(got), want.astype(np.uint32))
+
+
 def test_rc_words_matches_np(rng):
     codes = random_codes(rng, kc.K + 9)
     ws = kc.sliding_words(codes, 10)

@@ -2,7 +2,7 @@
 virtual devices each, joined with jax.distributed, running the DCN-aware
 hierarchical count over the global ("host","chip") mesh.  The reference
 runs cluster-wide via mrp/SGE (tenkit/bin/common/_mrp:26); this validates
-our jax.distributed equivalent end-to-end without TPU pod hardware."""
+our jax.distributed equivalent end-to-end without multi-host hardware."""
 import os
 import socket
 import subprocess

@@ -74,3 +74,32 @@ def test_patch_closes_coverage_gap(rng):
     new_bg.validate()
     # the patched graph joins across the hole
     assert new_bg.edges.lengths().max() > bg.edges.lengths().max()
+
+
+def test_insert_patches_runs_on_default_device(rng, monkeypatch):
+    """The rebuild runs on the default device: it neither asks for the CPU
+    device nor opens a device context, whatever the backend."""
+    import jax
+
+    from supernova_tpu.sim import genome as sim
+
+    g = sim.random_genome(rng, 2000)
+    seqs = [g[:1000].copy(), g[1010:].copy()]
+    prs = build_readset(
+        seqs, [np.full(len(s), 37, np.uint8) for s in seqs],
+        np.zeros(1, np.int32), n_barcodes=0, barcoded=False,
+    )
+    table = dbuild.trim_table(
+        kcount.count_readset(prs, min_freq=1, min_read_len=K)
+    )
+    bg = dgraph.from_device(dbuild.build_graph(table), table)
+    assert int(bg.edges.lengths().max()) < len(g)
+
+    def no_context(*a, **k):
+        raise AssertionError("insert_patches opened a device context")
+
+    monkeypatch.setattr(jax, "default_device", no_context)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    closure = g[1000 - 2 * K : 1010 + 2 * K].copy()
+    new_bg = apatch.insert_patches(bg, [closure])
+    assert int(new_bg.edges.lengths().max()) == len(g)

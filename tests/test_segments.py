@@ -37,12 +37,9 @@ def test_stable_compact():
 
 
 def test_compact_sorted_words_matches_stable():
-    """Unstable 4-key compaction == stable compaction when rows are sorted
-    by words and kept rows have distinct words (run-end rows)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from supernova_tpu.ops import segments as seg
-
+    """The count's compaction case: rows sorted by words, kept rows are the
+    distinct run ends; stable_compact keeps them in word order with every
+    payload, exactly as numpy boolean indexing does."""
     rng = np.random.default_rng(3)
     n = 4096
     # sorted-by-words rows with duplicates (runs)
@@ -57,13 +54,9 @@ def test_compact_sorted_words_matches_stable():
     )
     pay1 = rng.integers(0, 1000, n).astype(np.uint32)
     pay2 = rng.integers(0, 1000, n).astype(np.uint32)
-    nv1, r1 = seg.stable_compact(
-        jnp.asarray(last), wa, wb, wc, pay1, pay2
-    )
-    nv2, r2 = seg.compact_sorted_words(
-        jnp.asarray(last), wa, wb, wc, pay1, pay2
-    )
-    k = int(nv1)
-    assert k == int(nv2)
-    for a, b in zip(r1, r2):
-        assert np.array_equal(np.asarray(a)[:k], np.asarray(b)[:k])
+    cols = (wa, wb, wc, pay1, pay2)
+    nv, res = seg.stable_compact(jnp.asarray(last), *map(jnp.asarray, cols))
+    k = int(nv)
+    assert k == last.sum()
+    for c, r in zip(cols, res):
+        assert np.array_equal(np.asarray(r)[:k], c[last])
